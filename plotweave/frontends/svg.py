@@ -11,7 +11,8 @@ control tensor and evaluated against a shared t-grid with a single Bernstein
 matmul — the "vectorized path sampling" path.  numpy float64 is the default
 (and the byte-contract path); ``--sampling-backend jax`` on the svg2gcode /
 svg2stream CLIs routes the matmuls through the default JAX device instead
-(float32 on TPU — geometry may differ in final ulps, documented opt-in).
+(float32 on accelerators — geometry may differ in final ulps, documented
+opt-in).
 """
 
 from __future__ import annotations
@@ -79,17 +80,28 @@ def _samples_for(length_estimate: float, per_unit: float, lo: int = 8, hi: int =
     return int(min(hi, max(lo, math.ceil(length_estimate * per_unit))))
 
 
+def _precision(xp) -> dict:
+    """einsum kwargs: full float32 products on a JAX device (GPUs would
+    otherwise run float32 matmuls in TF32); numpy takes none."""
+    if xp is np:
+        return {}
+    import jax  # noqa: PLC0415
+
+    return {"precision": jax.lax.Precision.HIGHEST}
+
+
 def sample_cubics_batched(ctrl: np.ndarray, n: int, xp=np) -> np.ndarray:
     """(N, 4, 2) control points → (N, n, 2) points via one Bernstein matmul.
 
     ``xp=numpy`` (default) samples in float64 — the byte-contract path.
     ``xp=jax.numpy`` runs the matmul on the default JAX device in the
-    backend's native dtype (float32 on TPU unless ``jax_enable_x64``)."""
+    backend's native dtype (float32 unless ``jax_enable_x64``), at full
+    float32 precision (no TF32 on GPUs)."""
     dt = xp.float64 if xp is np else None
     t = xp.linspace(0.0, 1.0, n, dtype=dt)[:, None]
     u = 1.0 - t
     B = xp.concatenate([u**3, 3 * u**2 * t, 3 * u * t**2, t**3], axis=1)  # (n, 4)
-    return xp.einsum("nk,skc->snc", B, xp.asarray(ctrl))
+    return xp.einsum("nk,skc->snc", B, xp.asarray(ctrl), **_precision(xp))
 
 
 def sample_quads_batched(ctrl: np.ndarray, n: int, xp=np) -> np.ndarray:
@@ -98,7 +110,7 @@ def sample_quads_batched(ctrl: np.ndarray, n: int, xp=np) -> np.ndarray:
     t = xp.linspace(0.0, 1.0, n, dtype=dt)[:, None]
     u = 1.0 - t
     B = xp.concatenate([u**2, 2 * u * t, t**2], axis=1)
-    return xp.einsum("nk,skc->snc", B, xp.asarray(ctrl))
+    return xp.einsum("nk,skc->snc", B, xp.asarray(ctrl), **_precision(xp))
 
 
 def _arc_to_points(p0, rx, ry, rot_deg, large, sweep, p1, n) -> np.ndarray:
@@ -311,7 +323,7 @@ def svg_to_polylines(svg_text: str, samples_per_unit: float = 0.5, xp=np) -> Lis
     """Parse an SVG document into transformed (N, 2) polylines (user units).
 
     ``xp=jax.numpy`` runs the batched curve sampling on the default JAX
-    device (opt-in; float32 on TPU, so sampled geometry may differ in the
+    device (opt-in; float32 on accelerators, so sampled geometry may differ in the
     last ulps from the numpy float64 default — not part of the byte
     contract)."""
     root = ET.fromstring(svg_text)

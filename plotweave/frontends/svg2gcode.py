@@ -31,7 +31,7 @@ def build_argparser() -> argparse.ArgumentParser:
         choices=["numpy", "jax"],
         default="numpy",
         help="curve-sampling backend: numpy float64 (default, byte-contract) "
-        "or the default JAX device (float32 on TPU; last-ulp geometry "
+        "or the default JAX device (float32; last-ulp geometry "
         "differences possible)",
     )
     return ap

@@ -62,12 +62,11 @@ def main(argv=None) -> None:
     print(f"Stream saved: {args.output} ({info['bytes']} bytes, paths={info['polylines_steps']})")
 
     if args.preview:
-        import cv2  # noqa: PLC0415
-
+        from ..utils import write_image  # noqa: PLC0415
         from ..viz.simulator import DEFAULT_PALETTE, print_stats, render_stream  # noqa: PLC0415
 
         img, dec = render_stream(data, cw, ch, invert_y=bool(args.invert_y), palette=DEFAULT_PALETTE)
-        cv2.imwrite(args.preview, img)
+        write_image(args.preview, img)
         print(f"Preview saved: {args.preview}")
         print_stats(dec)
 

@@ -103,12 +103,12 @@ def trace_skeleton_native(
     if lib is None:
         return None
     from .loader import bind_skeleton_ops  # noqa: PLC0415
-    from ..vector.trace import default_labeler  # noqa: PLC0415
+    from ..vector.trace import connected_components  # noqa: PLC0415
 
     bind_skeleton_ops(lib)
-    # the host here is memory-bandwidth-poor: avoid every avoidable full-res
-    # pass/copy (cv2 treats any nonzero as foreground, so 0/1 or 0/255 uint8
-    # input goes to the labeler as-is; the degree map is computed natively)
+    # avoid every avoidable full-res pass/copy (the labeller treats any
+    # nonzero as foreground, so 0/1 or 0/255 uint8 input goes to it as-is;
+    # the degree map is computed natively)
     if skel.dtype == np.uint8:
         m8 = np.ascontiguousarray(skel)
     else:
@@ -116,7 +116,7 @@ def trace_skeleton_native(
     fg = int(np.count_nonzero(m8))
     if fg == 0:
         return []
-    num, labels = (labeler or default_labeler)(m8)
+    num, labels = (labeler or connected_components)(m8)
     labels = np.ascontiguousarray(labels.astype(np.int32, copy=False))
     h, w = labels.shape
     deg = np.empty((h, w), np.uint8)
@@ -171,7 +171,7 @@ def trace_skeleton_native(
     _TRACE_CAP_FACTOR = min(256, max(2, used // max(1, fg) + 2))
     # disjoint views into the walk buffer (no compaction copy when the
     # buffer is near-exactly sized — a large memcpy costs real page-fault
-    # time on this host).  When the adaptive capacity overshot, compact so
+    # time).  When the adaptive capacity overshot, compact so
     # the returned contours don't pin the oversized walk buffer for their
     # whole lifetime.
     if used * 4 < cap_pts:
@@ -180,13 +180,14 @@ def trace_skeleton_native(
 
 
 class LineStampTable:
-    """Span table of cv2 thick-line rasterizations for every integer delta in
-    [-R..R]²: cv2 thick lines are translation-invariant, so the native loop
-    can stamp by translating pre-rendered spans — bit-identical to cv2.line.
+    """Span table of cv2-exact thick-line rasterizations (utils/draw.py) for
+    every integer delta in [-R..R]²: unclipped thick lines are
+    translation-invariant, so the native loop can stamp by translating
+    pre-rendered spans — bit-identical to drawing each line.
     """
 
     def __init__(self, thickness: int, R: int):
-        import cv2  # noqa: PLC0415
+        from ..utils import draw  # noqa: PLC0415
 
         self.thickness = int(thickness)
         self.R = int(R)
@@ -199,13 +200,12 @@ class LineStampTable:
         for dy in range(-R, R + 1):
             for dx in range(-R, R + 1):
                 scratch[:] = 0
-                cv2.line(scratch, (m, m), (m + dx, m + dy), 255,
-                         thickness=self.thickness, lineType=cv2.LINE_8)
+                draw.line(scratch, (m, m), (m + dx, m + dy), 255, self.thickness)
                 key = (dy + R) * side + (dx + R)
                 start[key] = len(rows)
                 ys, xs = np.nonzero(scratch)
                 if len(ys):
-                    # exact run-length spans per row (cv2 thick lines are NOT
+                    # exact run-length spans per row (thick lines are NOT
                     # always row-convex: the round end caps can leave in-row
                     # gaps to the body quad, so each contiguous run is kept)
                     order = np.lexsort((xs, ys))
@@ -223,13 +223,13 @@ class LineStampTable:
         self.span_row = np.ascontiguousarray(np.asarray(rows, np.int32))
         self.span_x0 = np.ascontiguousarray(np.asarray(x0s, np.int32))
         self.span_x1 = np.ascontiguousarray(np.asarray(x1s, np.int32))
-        # translation invariance holds only for UNCLIPPED renders: cv2's
-        # thick-line code clips the center segment against the image rect
-        # before thickening, so a stamp whose unclipped extent crosses the
-        # border rasterizes differently than the translated interior stamp
-        # (measured: ±1-px diffs both ways).  Callers must route any contour
-        # that could anchor a stamp within ``extent`` of the border through
-        # the Python cv2 path instead.
+        # translation invariance holds only for UNCLIPPED renders: the
+        # thick-line rasterizer clips the center segment against the image
+        # grown by the thickness before thickening, so a stamp whose
+        # unclipped extent crosses the border rasterizes differently than
+        # the translated interior stamp (±1-px diffs both ways).  Callers
+        # must route any contour that could anchor a stamp within
+        # ``extent`` of the border through the per-line drawing path.
         if len(rows):
             self.extent = int(max(
                 int(np.abs(self.span_row).max()),
@@ -266,7 +266,7 @@ def virtual_draw_native(samples, canvas, grid_radius, grid_cell, tail_len_px, br
 
     # pre-screen: off-canvas samples break the bounded-delta guarantee, and
     # samples within the stamp extent of the border could anchor a clipped
-    # stamp, where cv2's rendering is not translation-invariant (see
+    # stamp, where the rendering is not translation-invariant (see
     # LineStampTable.extent) — both go through the exact Python path
     e = table.extent
     rx = np.rint(sx)

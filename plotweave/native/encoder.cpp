@@ -2,8 +2,8 @@
 //
 // The byte-emission loop (Bresenham direction codes -> speed-ramp runs ->
 // packed step bytes) and the centerline walk are the host-side serial hot
-// loops of the pipeline (SURVEY hot loops #1 and #3); everything else runs
-// on the TPU.  Semantics are bit-identical to the Python implementations in
+// loops of the pipeline (SURVEY hot loops #1 and #3); the raster chain runs
+// on the accelerator.  Semantics are bit-identical to the Python implementations in
 // plotweave.stream.encoder / plotweave.vector.trace (cross-checked in tests);
 // Python-side `round()` banker's rounding is matched with nearbyint under
 // the default FE_TONEAREST mode.

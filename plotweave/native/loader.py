@@ -3,17 +3,92 @@
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
 from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "encoder.cpp")
-_LIB = os.path.join(_HERE, "_libplotweave.so")
+_SOURCES = tuple(os.path.join(_HERE, f) for f in ("encoder.cpp", "raster.cpp"))
+# build products live beside the sources in a git-ignored directory, one file
+# per build key: a library is only ever loaded by a host whose compiler,
+# flags and ISA produced it (a checkout copied to another machine rebuilds)
+_BUILD_DIR = os.path.join(_HERE, "_build")
+# -ffp-contract=off: the encoder/greedy float math must match numpy
+# bit-for-bit, and the drawing/min-circle ports must match OpenCV's SSE2
+# builds; FMA contraction would change last-ulp results and flip near-tie
+# selections.  -march=native widens the auto-vectorized elementwise loops; it
+# cannot change float results (contraction stays off, and GCC never
+# vectorizes FP reductions without -fassociative-math).
+_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
+_NATIVE_ISA = ("-march=native",)
+_BUILD_TIMEOUT_S = 300
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+
+
+def _host_isa() -> str:
+    """Machine name plus the CPU feature flags -march=native resolves from."""
+    flags = ""
+    try:
+        with open("/proc/cpuinfo", "r", encoding="utf-8", errors="replace") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    flags = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"{platform.machine()} {flags}"
+
+
+def _compiler_version() -> str:
+    out = subprocess.run(["g++", "--version"], check=True, capture_output=True,
+                         text=True, timeout=60).stdout
+    return out.splitlines()[0] if out else ""
+
+
+def build_key(sources, flags, compiler: str, isa: str) -> str:
+    """Hash of everything that determines the library's machine code."""
+    h = hashlib.sha256()
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+        h.update(b"\0")
+    h.update(" ".join(flags).encode())
+    h.update(b"\0" + compiler.encode() + b"\0" + isa.encode())
+    return h.hexdigest()[:24]
+
+
+def _compile(flags, key: str) -> str:
+    lib = os.path.join(_BUILD_DIR, f"libplotweave-{key}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    subprocess.run(["g++", *flags, "-o", tmp, *_SOURCES], check=True,
+                   capture_output=True, timeout=_BUILD_TIMEOUT_S)
+    os.replace(tmp, lib)
+    return lib
+
+
+def _build() -> Optional[str]:
+    """Path of a library built from the committed sources for this host,
+    compiling it when no build with the same key exists; None on failure."""
+    try:
+        compiler = _compiler_version()
+        isa = _host_isa()
+        flags = _NATIVE_ISA + _FLAGS
+        try:
+            return _compile(flags, build_key(_SOURCES, flags, compiler, isa))
+        except (subprocess.CalledProcessError, subprocess.TimeoutExpired):
+            # the compiler rejected (or choked on) -march=native: baseline ISA
+            return _compile(_FLAGS, build_key(_SOURCES, _FLAGS, compiler, ""))
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"[plotweave.native] build failed, using Python fallback: {e}", file=sys.stderr)
+        return None
 
 
 class PwProfile(ctypes.Structure):
@@ -31,33 +106,6 @@ class PwProfile(ctypes.Structure):
         ("travel_window_steps", ctypes.c_int32),
         ("travel_quant_step", ctypes.c_int32),
     ]
-
-
-def _build() -> bool:
-    try:
-        if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
-            return True
-        # -ffp-contract=off: the encoder/greedy float math must match numpy
-        # bit-for-bit; FMA contraction (default at -O3 on FMA-baseline
-        # targets) would change last-ulp results and flip near-tie selections.
-        # -march=native widens the auto-vectorized elementwise loops (the
-        # library always builds on the machine that runs it); it cannot
-        # change float results: contraction stays off, and GCC never
-        # vectorizes FP reductions without -fassociative-math, so sequential
-        # accumulation orders are preserved.  Falls back to the baseline ISA
-        # if the compiler rejects the flag.
-        cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
-               "-fPIC", "-o", _LIB + ".tmp", _SRC]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        except subprocess.CalledProcessError:
-            cmd.remove("-march=native")
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-        os.replace(_LIB + ".tmp", _LIB)
-        return True
-    except (OSError, subprocess.SubprocessError) as e:
-        print(f"[plotweave.native] build failed, using Python fallback: {e}", file=sys.stderr)
-        return False
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -106,9 +154,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _tried = True
         if os.environ.get("PLOTWEAVE_NO_NATIVE"):
             return None
-        if _build():
+        path = _build()
+        if path is not None:
             try:
-                _lib = _bind(ctypes.CDLL(_LIB))
+                _lib = _bind(ctypes.CDLL(path))
             except OSError as e:
                 print(f"[plotweave.native] load failed: {e}", file=sys.stderr)
     return _lib
@@ -336,3 +385,29 @@ def bind_find_period(lib: ctypes.CDLL) -> None:
     ]
     lib.pw_find_period.restype = ctypes.c_int
     lib._pw_period_bound = True
+
+
+def bind_raster(lib: ctypes.CDLL) -> None:
+    if hasattr(lib, "_pw_raster_bound"):
+        return
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    vp = ctypes.c_void_p
+    lib.pw_draw_polylines.argtypes = [
+        vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        vp, vp, ctypes.c_int64, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.pw_draw_polylines.restype = None
+    lib.pw_draw_circle.argtypes = [
+        vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ]
+    lib.pw_draw_circle.restype = None
+    lib.pw_min_enclosing_circle.argtypes = [vp, ctypes.c_int64, vp]
+    lib.pw_min_enclosing_circle.restype = None
+    lib.pw_png_unfilter.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, u8p]
+    lib.pw_png_unfilter.restype = ctypes.c_int
+    lib.pw_copy_nonwhite.argtypes = [vp, vp, ctypes.c_int64]
+    lib.pw_copy_nonwhite.restype = None
+    lib._pw_raster_bound = True

@@ -1,10 +1,9 @@
-"""Batched, jittable image ops for the raster front-end (TPU path).
+"""Batched, jittable image ops for the raster front-end (device path).
 
-All ops are pure JAX functions over static-shape arrays, vmappable over a
-leading layer/batch axis and designed around TPU strengths: resize as two
-matmuls (MXU), separable fixed-point convolutions, stencil passes expressed
-as shifted-array boolean algebra (fused by XLA), convergence loops via
-``lax.while_loop``.
+All ops are pure JAX functions over static-shape arrays, batched over a
+leading layer/batch axis: ordered area-resize taps, separable fixed-point
+convolutions, stencil passes expressed as shifted-array boolean algebra
+(fused by XLA), convergence loops via ``lax.while_loop``.
 
 Bit-exactness contracts (validated against OpenCV in tests):
 

@@ -4,7 +4,7 @@ Pipeline: 3×3 Sobel (replicate border) → L1 magnitude → fixed-point sector
 non-maximum suppression (the Q15 tan(22.5°)=13573 trick, with OpenCV's exact
 strict/non-strict comparison pattern per sector) → double threshold →
 hysteresis as a dilate-AND fixpoint loop (equivalent to BFS reachability
-from strong pixels through weak ones, but expressible as a TPU stencil).
+from strong pixels through weak ones, but expressible as a device stencil).
 
 Reference use: 03_edge_detect.py:34 (cv2.Canny on the blurred mask).
 """
@@ -62,6 +62,21 @@ def canny_packed(img: jax.Array, low: int, high: int):
     board feeds thinning.zhang_suen_packed directly — the two fixpoints
     share the encoding, so the dense round trip between them is pure waste
     (ops/frontend.py)."""
+    candb, edgesb = canny_boards(img, low, high)
+    edgesb, _ = jax.lax.while_loop(
+        lambda st: st[1], lambda st: hysteresis_step(candb, st[0]), (edgesb, jnp.array(True))
+    )
+    from .thinning import unpack_bitboards  # noqa: PLC0415
+
+    edges = unpack_bitboards(edgesb, img.shape[-1])
+    return jnp.where(edges != 0, jnp.uint8(255), jnp.uint8(0)), edgesb
+
+
+def canny_boards(img: jax.Array, low: int, high: int):
+    """Sobel + sector NMS + double threshold → bit-packed (candidate, strong)
+    boards, the hysteresis fixpoint's inputs."""
+    from .thinning import pack_bitboards  # noqa: PLC0415
+
     if low > high:
         low, high = high, low
     # L1 magnitude ≤ 2040, so thresholds clamp into int16 range losslessly
@@ -102,34 +117,26 @@ def canny_packed(img: jax.Array, low: int, high: int):
     cand = (mag > low) & keep
     strong = cand & (mag > high)
 
-    # ---- hysteresis: grow strong through candidates to fixpoint ----
-    # Reachability grows one pixel per sweep along weak-edge chains, so the
-    # loop trip count is the longest chain (often hundreds).  Run it
-    # bit-packed (32 px per uint32 lane, same representation as the thinning
-    # fixpoint) so each sweep touches ~1/32 of the dense bool bytes — the
-    # fixpoint is identical, only the encoding changes.
-    from .thinning import (_nbr_bits, _shift_rows, pack_bitboards,  # noqa: PLC0415
-                           unpack_bitboards)
+    return pack_bitboards(cand), pack_bitboards(strong)
 
-    w = img.shape[-1]
-    candb = pack_bitboards(cand)
-    edgesb = pack_bitboards(strong)
+
+def hysteresis_step(candb: jax.Array, edgesb: jax.Array):
+    """One step of the hysteresis fixpoint: grow the strong edges through the
+    candidates → (new board, changed?).
+
+    Reachability grows one pixel per sweep along weak-edge chains, so the
+    loop trip count is the longest chain (often hundreds).  It runs
+    bit-packed (32 px per uint32 lane, the thinning fixpoint's encoding) so
+    each sweep touches ~1/32 of the dense bool bytes — the fixpoint is
+    identical, only the encoding changes.  Two sweeps per step halve the
+    loop's predicate reductions; sweeps past the fixpoint are no-ops (growth
+    is monotone)."""
+    from .thinning import _nbr_bits, _shift_rows  # noqa: PLC0415
 
     def _dilate8(e):
         row = e | _nbr_bits(e, 1) | _nbr_bits(e, -1)
         return row | _shift_rows(row, 1) | _shift_rows(row, -1)
 
-    def grow(state):
-        edges, _ = state
-        new = candb & _dilate8(edges)
-        # a second sweep per loop step halves the cond-reduction count;
-        # sweeps past the fixpoint are no-ops (growth is monotone)
-        new = candb & _dilate8(new)
-        return new, jnp.any(new != edges)
-
-    def cond(state):
-        return state[1]
-
-    edgesb, _ = jax.lax.while_loop(cond, grow, (edgesb, jnp.array(True)))
-    edges = unpack_bitboards(edgesb, w)
-    return jnp.where(edges != 0, jnp.uint8(255), jnp.uint8(0)), edgesb
+    new = candb & _dilate8(edgesb)
+    new = candb & _dilate8(new)
+    return new, jnp.any(new != edgesb)

@@ -1,10 +1,10 @@
 """Fused raster front-end: image → per-layer edges + skeletons, one program.
 
 This is the flagship compute graph (stages 01–04's dense work): Lab
-conversion → nearest-center layer assignment (MXU distance matmul) → per-layer
-mask morphology → Gaussian blur → Canny → Zhang–Suen thinning, vmapped over
-layers, jitted end-to-end so XLA fuses the stencil chains and keeps
-everything on-chip.  Batched/sharded wrappers live in plotweave.parallel.
+conversion → nearest-center layer assignment → per-layer mask morphology →
+Gaussian blur → Canny → Zhang–Suen thinning, batched over layers, jitted
+end-to-end so XLA fuses the stencil chains and keeps everything on the
+device.  Batched/sharded wrappers live in plotweave.parallel.
 """
 
 from __future__ import annotations
@@ -54,7 +54,6 @@ def assign_nearest(image: jax.Array, centers: jax.Array, k: int) -> jax.Array:
         "low",
         "high",
         "thin_iters",
-        "pallas_thinning",
     ),
 )
 def raster_frontend(
@@ -69,13 +68,12 @@ def raster_frontend(
     low: int = 22,
     high: int = 70,
     thin_iters: int = 120,
-    pallas_thinning: bool = False,
 ) -> Tuple[jax.Array, jax.Array]:
     """Returns (edges (..., k, H, W) uint8, skeletons (..., k, H, W) uint8)."""
     labels = assign_nearest(image, centers, k)  # (...,H,W) int32
 
     # all ops are natively batched on (..., k, H, W): static-slice stencils
-    # and joint fixpoint loops compile far faster than vmap-of-while on TPU.
+    # and joint fixpoint loops compile far faster than vmap-of-while.
     # The binary morphology runs bit-packed (32 px/uint32 lane, one pack →
     # four programs → one unpack) — 2.9× the dense min/max chain.
     from .morphology import _valid_bits, morph_bits  # noqa: PLC0415
@@ -95,11 +93,6 @@ def raster_frontend(
     # result straight to the (also bit-packed) thinner instead of paying a
     # dense-u8 round trip + re-pack between the two fixpoints
     edges, edges_b = canny_packed(gaussian_blur_u8(masks, blur_kernel), low, high)
-    if pallas_thinning:
-        from .pallas_kernels import zhang_suen_pallas  # noqa: PLC0415
-
-        skel = zhang_suen_pallas(edges, max_iter=thin_iters, rotated=True).astype(jnp.uint8)
-    else:
-        skel_b = zhang_suen_packed(edges_b, max_iter=thin_iters, rotated=True)
-        skel = unpack_bitboards(skel_b, w).astype(jnp.uint8)
+    skel_b = zhang_suen_packed(edges_b, max_iter=thin_iters, rotated=True)
+    skel = unpack_bitboards(skel_b, w).astype(jnp.uint8)
     return edges, skel

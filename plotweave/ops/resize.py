@@ -1,8 +1,7 @@
 """Area-average (INTER_AREA-style) resize as two matmuls.
 
-The separable area-overlap weights turn downscaling into
-``Wy @ img @ Wx.T`` — two dense matmuls that map straight onto the TPU MXU,
-instead of the gather-heavy per-pixel loops of a CPU implementation.
+Step 01's downscale: the separable area-overlap weights applied as ordered
+per-tap gathers and float32 accumulations on the device.
 
 Rounding contracts (reference behavior: 01_resize.py:7-23 via cv2.resize):
 
@@ -157,8 +156,8 @@ def _area_resize_frac(img: jax.Array, new_w: int, new_h: int) -> jax.Array:
     across ``optimization_barrier`` — and OpenCV rounds each product before
     adding (no fma), so contraction flips half-even ties.  Materializing the
     product stacks at kernel boundaries is the only contraction-proof cut.
-    (TPU does not contract here, but one implementation must be bit-exact on
-    both backends — the e2e goldens run on both.)
+    (One implementation must be bit-exact on every backend — the e2e
+    goldens run on the CPU and the GPU.)
 
     Extreme downscale ratios (> ~15, taps > _TAP_CHUNK) switch to the
     chunked accumulation above — bit-identical, bounded memory.

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a fork pool across 4 color layers
 (03_edge_detect.py:42-48) and process-per-step isolation; there is no
-distributed backend (SURVEY §2.9).  The TPU-native replacements:
+distributed backend (SURVEY §2.9).  The device-mesh replacements:
 
 - layers           → ``jax.vmap`` inside one compiled program (ops.frontend)
 - batch of images  → ``shard_map`` over a ``data`` mesh axis (batch.py) —

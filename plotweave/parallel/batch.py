@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import jax
 from jax.sharding import Mesh, PartitionSpec as P
-from ._compat import shard_map
 
 from ..ops.frontend import raster_frontend
 
@@ -24,11 +23,11 @@ def frontend_batch(mesh: Mesh, images, centers, *, axis: str = "data", **kw):
     def local(imgs, ctrs):
         return raster_frontend(imgs, ctrs, **kw)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(axis), P()),
         out_specs=(P(axis), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)(images, centers)

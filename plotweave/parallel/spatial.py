@@ -1,10 +1,10 @@
 """Spatial sharding: one large image row-sharded across the mesh.
 
 Stencil stages exchange 1-to-3-row halos with mesh neighbors via
-``jax.lax.ppermute`` (ICI traffic only); iterative fixpoints (Canny
-hysteresis, Zhang–Suen thinning) exchange a 1-row halo per sweep and reach
-global convergence via an all-reduced changed flag.  This is the TPU analog
-of the reference's resolution cap — instead of downscaling a 4K+ input
+``jax.lax.ppermute`` (device-to-device traffic only); iterative fixpoints
+(Canny hysteresis, Zhang–Suen thinning) exchange a 1-row halo per sweep and
+reach global convergence via an all-reduced changed flag.  This is the
+multi-device answer to the reference's resolution cap — instead of downscaling a 4K+ input
 (01_resize.py:15-20), shard it (SURVEY §5 long-context mapping).
 
 Outputs are bit-identical to the single-device ops (halo regions are compute
@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from ._compat import shard_map
 
 from ..ops.canny import _nbr, _sobel_pair, _TG22, _SHIFT
 from ..ops.filters import gaussian_kernel_q8
@@ -76,12 +75,12 @@ def spatial_frontend(
     → (k, H, W) edges, (k, H, W) skeletons, H sharded over the ``space`` axis.
     """
     local = make_local_frontend(k, edge_kernel, blur_kernel, low, high)
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(AXIS), P()),
         out_specs=(P(None, AXIS), P(None, AXIS)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)(image, centers)
 
@@ -272,14 +271,14 @@ def sharded_chain(
     """Row-sharded twin of stage 02's fused ``_chain_from_clean`` device
     program (s02_color_extract.py): unpack the uploaded CLEANED masks,
     stage 03's morphology+blur+Canny, stage 04's thinning — with rows split
-    over the ``space`` mesh axis and halos exchanged over ICI.
+    over the ``space`` mesh axis and halos exchanged between devices.
 
     Bit-identical to the unsharded program: returns the same flat u8 blob
-    ``[packed edges][packed skels]``.  This is the TPU answer to the
-    reference's resolution cap (01_resize.py:15-20): an image too large for
-    one chip's HBM streams through N chips' HBM instead of being downscaled.
-    (Round 5: the stage-02 mask refine moved to the host's cv2, so the rect
-    clean-up stage and the masks leg of the blob dropped out.)
+    ``[packed edges][packed skels]``.  This is the multi-device answer to
+    the reference's resolution cap (01_resize.py:15-20): an image too large
+    for one card's memory streams through N cards instead of being
+    downscaled.  (The stage-02 mask refine runs on the host, so the rect
+    clean-up stage and the masks leg of the blob are not part of it.)
     """
     run = _build_sharded_chain(mesh, w, mk, oi, ci, bk, lo, hi)
     return run(packed_clean)
@@ -302,7 +301,7 @@ def _build_sharded_chain(mesh, w, mk, oi, ci, bk, lo, hi):
         skels = _thin_halo_b(edges)
         return bitpack_rows(edges), bitpack_rows(skels)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(None, AXIS, None),),
@@ -310,7 +309,7 @@ def _build_sharded_chain(mesh, w, mk, oi, ci, bk, lo, hi):
             P(None, AXIS, None),
             P(None, AXIS, None),
         ),
-        check_rep=False,
+        check_vma=False,
     )
 
     @jax.jit
@@ -348,11 +347,11 @@ def grid_frontend(
     def local(imgs, ctrs):
         return jax.vmap(lambda im: local1(im, ctrs))(imgs)
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(data_axis, AXIS), P()),
         out_specs=(P(data_axis, None, AXIS), P(data_axis, None, AXIS)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)(images, centers)

@@ -3,7 +3,7 @@
 Per layer: ellipse-kernel open/close, Gaussian blur, Canny (reference
 03_edge_detect.py:13-40).  Where the reference forks a process pool across
 layers, the whole chain here is one jitted, layer-batched (vmap) device
-program — the TPU-native replacement for its only multiprocessing.
+program — the device replacement for its only multiprocessing.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from ..ops.filters import gaussian_blur_u8
 from ..utils import (
     fetch_derived_artifact,
     fetch_device_artifact,
-    raster_device_ctx,
     read_image,
     register_derived_artifact,
     register_device_artifact,
@@ -68,13 +67,12 @@ def run(cfg: PipelineConfig) -> None:
                     raise FileNotFoundError(f"Mask not found: {p}")
                 m = read_image(p, gray=True)
             masks.append(m)
-        with raster_device_ctx(cfg):
-            batch = jnp.stack(masks, axis=0) if all_dev else np.stack([np.asarray(m) for m in masks], axis=0)
-            packed_dev, edges_dev = _edges_batched(batch, *edge_params(cfg))
+        batch = jnp.stack(masks, axis=0) if all_dev else np.stack([np.asarray(m) for m in masks], axis=0)
+        packed_dev, edges_dev = _edges_batched(batch, *edge_params(cfg))
         edges = unpack_rows(packed_dev, batch.shape[-1]) * np.uint8(255)
         packed_skels = None
 
-    # PNG encode dominates the host cost at large sizes; cv2 releases the GIL
+    # PNG encode dominates the host cost at large sizes; zlib releases the GIL
     def write_one(i_name):
         i, name = i_name
         out = os.path.join(layer_dir(cfg, name), "edges.png")

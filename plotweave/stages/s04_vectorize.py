@@ -20,7 +20,7 @@ from ..config import PipelineConfig
 from ..ops.bitpack import bitpack_rows, unpack_rows
 from ..ops.thinning import zhang_suen
 from ..utils import (fetch_derived_artifact, fetch_device_artifact,
-                     raster_device_ctx, read_image, save_pickle, thread_map)
+                     read_image, save_pickle, thread_map)
 from ..vector.trace import trace_skeleton_fast
 from .common import chain_key, layer_dir
 
@@ -55,12 +55,11 @@ def run(cfg: PipelineConfig) -> None:
                 e = read_image(p, gray=True)
             edge_imgs.append(e)
 
-        with raster_device_ctx(cfg):
-            if all_dev:
-                batch = jnp.stack(edge_imgs, axis=0)
-            else:
-                batch = np.stack([np.asarray(e) for e in edge_imgs], axis=0)
-            skeletons = unpack_rows(_thin_batched(batch), batch.shape[-1])
+        if all_dev:
+            batch = jnp.stack(edge_imgs, axis=0)
+        else:
+            batch = np.stack([np.asarray(e) for e in edge_imgs], axis=0)
+        skeletons = unpack_rows(_thin_batched(batch), batch.shape[-1])
         print(f"[vectorize] thinning (batched, {len(names)} layers): {time.perf_counter() - t0:.2f}s")
 
     min_len = int(cfg.thinning_min_segment_len)
@@ -75,7 +74,7 @@ def run(cfg: PipelineConfig) -> None:
     save = save_pickle_async if chain_hint() else save_pickle
 
     # layers are independent — trace them concurrently (the native walker,
-    # cv2 labeling and pickle writes all release the GIL); output identical
+    # scipy labelling and pickle writes all release the GIL); output identical
     def trace_one(args):
         name, skel = args
         t1 = time.perf_counter()

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 
 from ..config import PipelineConfig
-from ..utils import load_json
+from ..utils import load_json, write_image
 from ..viz.simulator import DEFAULT_PALETTE, print_stats, render_stream, run_interactive
 
 
@@ -38,9 +38,7 @@ def run(cfg: PipelineConfig) -> None:
     if headless:
         out = os.environ.get("PLOTWEAVE_PREVIEW_PNG") or os.path.join(cfg.output_dir, "stream_preview.png")
         img, dec = render_stream(data, W, H, invert_y=invert_y, palette=DEFAULT_PALETTE)
-        import cv2  # noqa: PLC0415
-
-        cv2.imwrite(out, img)
+        write_image(out, img)
         print(f"[preview] headless render saved: {out}")
         print_stats(dec)
     else:

@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 
 from ..ops.kmeans import kmeans
+from ..utils import read_image
 from .palette import MarkerPalette
 
 HUE_BUCKETS = [
@@ -56,11 +57,7 @@ def hue_histogram(rgb_pixels: np.ndarray) -> dict:
 
 
 def analyze(image_path: str, k: int = 6, sample_limit: int = 50_000, n_recommend: int = 4) -> dict:
-    import cv2  # noqa: PLC0415
-
-    img = cv2.imread(image_path)
-    if img is None:
-        raise FileNotFoundError(image_path)
+    img = read_image(image_path)
     rgb = img[:, :, ::-1].reshape(-1, 3)
 
     non_white = rgb[(rgb < 250).any(axis=1)]
@@ -94,11 +91,10 @@ def save_panel(image_path: str, result: dict, out_path: str) -> None:
     import matplotlib
 
     matplotlib.use("Agg")
-    import cv2  # noqa: PLC0415
     import matplotlib.pyplot as plt  # noqa: PLC0415
 
     fig, axes = plt.subplots(2, 2, figsize=(11, 8))
-    axes[0, 0].imshow(cv2.imread(image_path)[:, :, ::-1])
+    axes[0, 0].imshow(read_image(image_path)[:, :, ::-1])
     axes[0, 0].set_title("image")
     axes[0, 0].axis("off")
 

@@ -11,14 +11,11 @@ import os
 import numpy as np
 
 from ..ops.kmeans import kmeans
+from ..utils import read_image, write_image
 
 
 def split_layers(image_path: str, out_dir: str, k: int = 6, palette_json: str = None) -> dict:
-    import cv2  # noqa: PLC0415
-
-    img = cv2.imread(image_path)
-    if img is None:
-        raise FileNotFoundError(image_path)
+    img = read_image(image_path)
     os.makedirs(out_dir, exist_ok=True)
     h, w = img.shape[:2]
     rgb = img[:, :, ::-1].reshape(-1, 3).astype(np.float32)
@@ -40,7 +37,7 @@ def split_layers(image_path: str, out_dir: str, k: int = 6, palette_json: str = 
         names = [f"c{i}" for i in range(len(centers))]
 
     labels2d = labels.reshape(h, w)
-    cv2.imwrite(os.path.join(out_dir, "labels.png"), (labels2d * (255 // max(1, len(centers) - 1))).astype(np.uint8))
+    write_image(os.path.join(out_dir, "labels.png"), (labels2d * (255 // max(1, len(centers) - 1))).astype(np.uint8))
     np.save(os.path.join(out_dir, "labels.npy"), labels2d)
 
     palette_out = {
@@ -54,7 +51,7 @@ def split_layers(image_path: str, out_dir: str, k: int = 6, palette_json: str = 
 
     for i, n in enumerate(names):
         mask = (labels2d == i).astype(np.uint8) * 255
-        cv2.imwrite(os.path.join(out_dir, f"layer_{i}_{n.replace(' ', '_')}.png"), mask)
+        write_image(os.path.join(out_dir, f"layer_{i}_{n.replace(' ', '_')}.png"), mask)
 
     return palette_out
 

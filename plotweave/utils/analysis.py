@@ -12,6 +12,7 @@ import numpy as np
 
 from ..config import PipelineConfig
 from ..vector.geometry import as_pts
+from . import draw
 from .io import load_pickle
 
 STAGE_FILES = [
@@ -65,8 +66,6 @@ def combine_layers_to_image(
     thickness: int = 1,
 ) -> np.ndarray:
     """Rasterize all layers' polylines of one stage into a single BGR image."""
-    import cv2  # noqa: PLC0415
-
     from ..stages.common import palette_bgr, target_size_px  # noqa: PLC0415
 
     w, h = size_wh or target_size_px(cfg)
@@ -77,9 +76,9 @@ def combine_layers_to_image(
         if not os.path.exists(p):
             continue
         for poly in load_pickle(p):
-            arr = as_pts(poly).reshape(-1, 1, 2).astype(np.int32)
+            arr = as_pts(poly).reshape(-1, 2).astype(np.int32)
             if len(arr) >= 2:
-                cv2.polylines(img, [arr], False, colors[name], thickness, cv2.LINE_8)
+                draw.polylines(img, [arr], False, colors[name], thickness)
     return img
 
 

@@ -57,8 +57,8 @@ def _save_pickle_sync(obj: Any, path: str, fsync: bool = False) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     # overwrite in place ("r+b") instead of truncating: O_TRUNC frees the
     # file's tmpfs pages, so a re-run into the same output dir re-pays page
-    # allocation for tens of MB per artifact — at this host's episodic
-    # page-fault cost (CLAUDE.md: up to ~55 ms/MB in bad phases) that was
+    # allocation for tens of MB per artifact — at the earlier development
+    # host's episodic page-fault cost (up to ~55 ms/MB in bad phases) that was
     # the single largest stage cost on the 4K poster (pickle.dump measured
     # 1.2–2.8 s per stage mid-phase).  Writing over existing pages is a
     # plain memcpy; the trailing truncate only trims if the new dump is
@@ -107,20 +107,43 @@ def save_json(obj: Any, path: str, indent: int = 2) -> None:
 
 
 def read_image(path: str, gray: bool = False) -> np.ndarray:
-    import cv2  # noqa: PLC0415
+    """cv2.imread semantics: (H, W) uint8 when ``gray`` else (H, W, 3) BGR.
 
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+    PNG is decoded by the built-in codec (utils/png.py).  Other formats need
+    OpenCV as an optional decoder; without it they are refused by name."""
+    from .png import decode_png  # noqa: PLC0415
+
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError as e:
+        raise FileNotFoundError(f"cannot read image: {path}") from e
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return decode_png(data, gray=gray)
+    try:
+        import cv2  # noqa: PLC0415 — optional decoder for non-PNG input
+    except ImportError:
+        raise ValueError(
+            f"{path}: only PNG input is decoded without OpenCV; install "
+            "opencv-python to read other formats, or convert the file to PNG"
+        ) from None
+    img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                       cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
     if img is None:
-        raise FileNotFoundError(f"cannot read image: {path}")
+        raise ValueError(f"cannot decode image: {path}")
     return img
 
 
 def write_image(path: str, img: np.ndarray) -> None:
-    import cv2  # noqa: PLC0415
+    """Write ``img`` (gray, BGR or BGRA uint8) as PNG."""
+    from .png import encode_png  # noqa: PLC0415
 
+    if not path.lower().endswith(".png"):
+        raise ValueError(f"only PNG artifacts are written: {path}")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if not cv2.imwrite(path, np.asarray(img)):
-        raise IOError(f"cannot write image: {path}")
+    data = encode_png(np.asarray(img))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 # --------------------------------------------------------------- handoff
@@ -148,14 +171,14 @@ def _stat_sig(path: str):
 
 # Host pickle handoff: same contract as the device registry below, for the
 # vector-stage artifacts (contours/lines pickles reach ~60 MB per layer at
-# 4K; each inter-stage disk round trip costs real time on this host).
+# 4K; each inter-stage disk round trip costs real time).
 #
 # Eviction is BYTE-budgeted, not just entry-counted: a single 4K run
 # registers ~40 entries where the spun layers are ~60 MB each, so a pure
 # entry cap left the PREVIOUS run's arrays pinned across runs — which
 # blocks glibc's warm-heap reuse (plotweave/__init__ raises the trim
 # threshold precisely so freed big buffers are recycled) and re-exposes
-# every run to the host's episodic first-touch page-fault cost.
+# every run to first-touch page-fault cost.
 _PICKLE_HANDOFF: "OrderedDict[str, tuple]" = OrderedDict()
 _PICKLE_HANDOFF_CAP = 64
 _PICKLE_HANDOFF_BYTE_CAP = 512 * 1024 * 1024
@@ -240,8 +263,8 @@ def _fetch_pickle_handoff(path: str):
 
 # ---------------------------------------------------------------- write-behind
 #
-# The vector stages' artifact contract costs more than their algorithms on
-# this host (bench_s04_split: stage 04's trace is 0.27 s; the ~60 MB
+# The vector stages' artifact contract cost more than their algorithms on
+# the earlier development host (bench_s04_split: stage 04's trace is 0.27 s; the ~60 MB
 # layer_light contours.pkl dump is most of the rest).  When a stage runs
 # inside a pipeline chain, the dump can happen on a background writer thread
 # while the pipeline proceeds — the in-process consumer gets the LIVE object
@@ -411,7 +434,7 @@ def thread_map(fn, items, cap: int = 8) -> list:
 
     The cpu_count clamp matters: every call site's body is pure host compute
     (no device waits to overlap), so extra threads can only lose — and on the
-    1-core bench host they lose catastrophically: 8 tracers first-touching
+    earlier one-core development host they lost catastrophically: 8 tracers first-touching
     fresh multi-MB walk buffers concurrently serialize on the kernel's mmap
     lock (measured: 8-layer 4K trace 0.9 s sequential vs 23–105 s under an
     8-thread pool, the spread depending on how warm the malloc arenas are)."""

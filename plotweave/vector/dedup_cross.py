@@ -13,9 +13,9 @@ from __future__ import annotations
 import math
 from typing import List, Tuple
 
-import cv2
 import numpy as np
 
+from ..utils import draw
 from .geometry import arc_length, as_pts, split_on_jumps
 from .sort import reorder_cross
 
@@ -65,12 +65,12 @@ def stamp_thick(canvas: np.ndarray, lines: List[np.ndarray], taps: List[Tap], br
     """Thick-brush stamping: polylines with round joints, taps as discs (10:122-140)."""
     thickness = int(max(1, round(brush_diam)))
     radius = max(1, int(round(brush_diam / 2.0)))
-    arrs = [np.asarray(p).reshape(-1, 1, 2).astype(np.int32) for p in lines]
+    arrs = [np.asarray(p).reshape(-1, 2).astype(np.int32) for p in lines]
     arrs = [a for a in arrs if len(a) >= 2]
     if arrs:
-        cv2.polylines(canvas, arrs, isClosed=False, color=255, thickness=thickness, lineType=cv2.LINE_8)
+        draw.polylines(canvas, arrs, False, 255, thickness)
     for x, y in taps:
-        cv2.circle(canvas, (int(x), int(y)), radius, 255, thickness=-1, lineType=cv2.LINE_8)
+        draw.circle(canvas, (int(x), int(y)), radius, 255, -1)
 
 
 def classify_taps_cross(
@@ -87,8 +87,7 @@ def classify_taps_cross(
     for c in polys:
         if c is None:
             continue
-        f = as_pts(c).astype(np.float32).reshape(-1, 1, 2)
-        (cx, cy), r = cv2.minEnclosingCircle(f)
+        (cx, cy), r = draw.min_enclosing_circle(as_pts(c))
         d = float(2.0 * r)
         if d <= tap_diam:
             if arc_length(c, False) <= tap_max_perimeter and int(as_pts(c).shape[0]) <= tap_max_vertices:

@@ -28,9 +28,9 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
-import cv2
 import numpy as np
 
+from ..utils import draw
 from .geometry import (
     as_pts,
     batch_bbox,
@@ -43,6 +43,7 @@ from .geometry import (
     split_on_jumps,
 )
 from .sort import reorder_intra
+from .trace import connected_components
 
 Tap = Tuple[int, int]
 
@@ -139,7 +140,7 @@ def classify_taps(
         d = float(dmax[i])
         if d <= tap_diam and d <= tap_max_dim:
             if int(p.shape[0]) <= tap_max_vertices and perim_of[i] <= tap_max_perimeter:
-                (x, y), _ = cv2.minEnclosingCircle(p.reshape(-1, 1, 2).astype(np.float32))
+                (x, y), _ = draw.min_enclosing_circle(p)
                 taps.append((int(round(x)), int(round(y))))
                 continue
         if d < min_keep_diam:
@@ -201,7 +202,7 @@ def virtual_draw_cut(
         xi, yi = int(round(xy[0])), int(round(xy[1]))
         if 0 <= xi < w and 0 <= yi < h:
             if last_committed is not None:
-                cv2.line(canvas, last_committed, (xi, yi), 255, thickness=brush, lineType=cv2.LINE_8)
+                draw.line(canvas, last_committed, (xi, yi), 255, brush)
             last_committed = (xi, yi)
 
     def age_out() -> None:
@@ -372,14 +373,14 @@ def skeleton_merge(
 
         roi = np.zeros((h, w), np.uint8)
         for j in idxs:
-            q = (as_pts(lines[j]).astype(np.int32) - np.array([x0, y0], np.int32)).reshape(-1, 1, 2)
+            q = as_pts(lines[j]).astype(np.int32) - np.array([x0, y0], np.int32)
             if len(q) >= 2:
-                cv2.polylines(roi, [q], False, 255, thickness=max(1, brush_px), lineType=cv2.LINE_8)
+                draw.polylines(roi, [q], False, 255, max(1, brush_px))
 
         sk = thinner(roi)
         if sk.sum() == 0:
             continue
-        num, lab = cv2.connectedComponents((sk > 0).astype(np.uint8), connectivity=8)
+        num, lab = connected_components(sk)
 
         ys, xs = np.where(sk > 0)
         skpts = np.stack([ys, xs], axis=1) if ys.size else np.zeros((0, 2), np.int32)
@@ -425,40 +426,23 @@ def skeleton_merge(
 
 
 def _default_thinner(roi: np.ndarray) -> np.ndarray:
-    """Stage-08 Zhang–Suen via the JAX stencil, shape-bucketed to bound
-    recompilation (zero padding cannot change the skeleton inside).
-
-    Cluster ROIs are small and numerous: dispatching each through a remote
-    accelerator costs more in round trips than the compute, so small ROIs
-    run on the local CPU backend (identical integer stencil either way).
-    """
+    """Stage-08 Zhang–Suen: the native bit-packed thinner, else the JAX
+    stencil shape-bucketed to bound recompilation (zero padding cannot
+    change the skeleton inside)."""
     from ..native.api import thin_native  # noqa: PLC0415
 
     sk = thin_native(roi, max_iter=48, rotated=False)
     if sk is not None:
         return sk * 255
 
-    import jax  # noqa: PLC0415
-
-    from ..ops import zhang_suen  # noqa: PLC0415 — lazy: keep cv2-only paths importable
+    from ..ops import zhang_suen  # noqa: PLC0415
 
     h, w = roi.shape
     hb = max(32, 1 << (h - 1).bit_length())
     wb = max(32, 1 << (w - 1).bit_length())
     padded = np.zeros((hb, wb), np.uint8)
     padded[:h, :w] = roi
-
-    def run():
-        return np.asarray(zhang_suen(padded, max_iter=48, rotated=False)).astype(np.uint8) * 255
-
-    if hb * wb <= 512 * 512:
-        try:
-            cpu = jax.local_devices(backend="cpu")[0]
-            with jax.default_device(cpu):
-                return run()[:h, :w]
-        except RuntimeError:
-            pass
-    return run()[:h, :w]
+    return (np.asarray(zhang_suen(padded, max_iter=48, rotated=False)).astype(np.uint8) * 255)[:h, :w]
 
 
 def _virtual_draw_all_native(

@@ -106,7 +106,8 @@ def _concat_pts(ptss: List[np.ndarray], dtype) -> Tuple[np.ndarray, np.ndarray]:
 
 # cap per-chunk concatenation size: poster-scale contour sets run to
 # 10M+ points, and one giant fresh allocation pays seconds of first-touch
-# page faults on this host — bounded chunks keep the allocator arena warm.
+# page faults (measured on the earlier one-core development host) — bounded
+# chunks keep the allocator arena warm.
 # Chunks split at contour boundaries, so per-contour results are unchanged.
 _CHUNK_PTS = 1_000_000
 
@@ -147,8 +148,8 @@ def batch_arc_length(ptss: List[np.ndarray], closed: np.ndarray) -> np.ndarray:
         bind_skeleton_ops(lib)
         # zero-copy: hand the C loop each contour's own storage instead of
         # concatenating (poster-scale spun layers are tens of MB — the concat
-        # copy dominated this call and swings badly with the host's episodic
-        # page-fault phases).  Same loop, same accumulation order.
+        # copy dominated this call and swung badly with the earlier
+        # development host's episodic page-fault phases).  Same loop, same accumulation order.
         arrs = [np.ascontiguousarray(np.asarray(p).reshape(-1, 2)) for p in ptss]
         ptrs = np.fromiter((a.ctypes.data for a in arrs), np.uintp, count=len(arrs))
         lens = np.fromiter((len(a) for a in arrs), np.int64, count=len(arrs))

@@ -233,7 +233,7 @@ def refine_tour(ops: List[Op], max_rounds: int = 5, device_min_n: int = 0) -> Li
     ``device_min_n`` > 0 routes op lists of at least that many entries
     through the on-device refiner (vector/refine_device.py: every 2-opt and
     relocation move evaluated at once as n×n matrices) when the default
-    backend is a real accelerator — the host scan is O(n²) Python per pass
+    backend is an accelerator — the host scan is O(n²) Python per pass
     and becomes the stage bottleneck in the low hundreds of ops.  Both paths
     only reorder/flip ops; the device result is length-verified on host and
     never worse than the input."""

@@ -1,23 +1,25 @@
-"""Device greedy planner: stage 07's nearest-endpoint tour on the chip.
+"""Device greedy planner: stage 07's nearest-endpoint tour on the device.
 
 The host C++ selection loop (native pw_greedy_order) is O(n²) sequential;
-on-device the per-step candidate scan vectorizes over all n, which wins for
-large plans (measured on the real chip, tests/tools/bench_greedy_device.py:
-host/device ms at n=1000: 6.4/35, n=5000: 122/69, n=20000: 2926/467 — and
-the orders/flips matched EXACTLY at every n).
+on the device the per-step candidate scan vectorizes over all n, which pays
+for large plans (the gate, config.planner_device_min_n, picks the size).
 
 Selection semantics replicate 07_sort_contours.py:50-87 bit-for-bit:
 float32 squared distances, jnp.argmin's first-minimum == the ascending
 strict-< scan, closed contours always join at their start, open contours
 prefer start when d²(start) ≤ d²(end).
 
-Shapes are padded to a bucket (one compile per bucket + closed_aware, cached
-persistently) with a DYNAMIC trip count, so padded iterations never run.
-Float caveat: on XLA:CPU the compiler may contract mul+add into fma, which
-can flip an ulp of d² against the host when squared coordinates exceed
-float32's 2²⁴ integer range — the TPU backend was measured exact (above);
-``greedy_order`` only auto-engages this path when the default backend is a
-real accelerator.
+Exactness: the host computes ``dx*dx + dy*dy`` in float32 with each product
+rounded before the add.  A GPU compiler fuses that into one FMA (one
+rounding), which flips near-ties once squares pass float32's 2²⁴ integer
+range.  Endpoints are integer pixel coordinates, so the device squares them
+in int32 — exact — and converts each square to float32 (the same rounding as
+a float32 product) before the float32 add: nothing is left to contract, and
+the distances equal the host's on every backend.  Plans whose endpoints are
+not small integers stay on the host.
+
+Shapes are padded to a bucket (one compile per bucket + closed_aware) with
+a DYNAMIC trip count, so padded iterations never run.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ import numpy as np
 
 # The 4096 bucket is unreachable under the DEFAULT gate (config.py
 # planner_device_min_n=4500 → the smallest eligible plan pads to 8192); it
-# exists only for user-lowered gates (planner_device_min_n ≤ 4096) and is
-# therefore excluded from warm_planner_cache.py's default bucket list.
+# exists only for user-lowered gates (planner_device_min_n ≤ 4096).
 BUCKETS = (4096, 8192, 16384, 32768, 65536)
-DEFAULT_WARM_BUCKETS = (8192, 16384, 32768, 65536)
+# |coordinate| bound that keeps int32 dx² + dy² from overflowing
+COORD_LIMIT = 16384
 
 
 @lru_cache(maxsize=1)
@@ -49,10 +51,16 @@ def _greedy_device_impl(s, e, closed, seed, n_valid, closed_aware: bool):
     n = s.shape[0]
     closed_f = closed if closed_aware else jnp.zeros_like(closed)
 
+    def d2(p, q):
+        # exact int32 squares, each rounded to float32, then one float32 add
+        # (module note: the host's product-then-add rounding, no FMA)
+        sq = ((p - q) * (p - q)).astype(jnp.float32)
+        return sq[:, 0] + sq[:, 1]
+
     def body(i, st):
         used, cur_end, order, flips = st
-        d2s = jnp.sum((s - cur_end) ** 2, axis=1)
-        d2e = jnp.sum((e - cur_end) ** 2, axis=1)
+        d2s = d2(s, cur_end)
+        d2e = d2(e, cur_end)
         prefer_start = closed_f | (d2s <= d2e)
         cand = jnp.where(prefer_start, d2s, d2e)
         cand = jnp.where(used, jnp.inf, cand)
@@ -84,43 +92,36 @@ def greedy_order_device(
     seed: int,
 ) -> Optional[Tuple[List[int], List[bool]]]:
     """(order, flips) via the device planner; None when the plan exceeds the
-    largest bucket or the backend errors (callers fall back to host)."""
-    import jax
+    largest bucket or its endpoints are not integers within ±COORD_LIMIT
+    (callers keep the host path).  Device errors propagate."""
     import jax.numpy as jnp
 
     n = len(starts)
     bucket = next((b for b in BUCKETS if b >= n), None)
     if bucket is None or n < 2:
         return None
-    pad = bucket - n
-    s = np.zeros((bucket, 2), np.float32)
-    e = np.zeros((bucket, 2), np.float32)
-    cl = np.zeros(bucket, bool)
-    s[:n] = np.asarray(starts, np.float32)
-    e[:n] = np.asarray(ends, np.float32)
-    cl[:n] = np.asarray(closed, bool)
-    try:
-        order, flips = _jitted()(
-            jnp.asarray(s), jnp.asarray(e), jnp.asarray(cl),
-            jnp.asarray(seed), jnp.asarray(n), closed_aware,
-        )
-        order = np.asarray(order)[:n]
-        flips = np.asarray(flips)[:n]
-    except Exception as e:  # noqa: BLE001 — device trouble → host path
-        import sys
-
-        print(f"[sort] device planner unavailable ({type(e).__name__}: {e}); "
-              "falling back to host", file=sys.stderr)
+    pts = np.concatenate([np.asarray(starts, np.float32).reshape(-1, 2),
+                          np.asarray(ends, np.float32).reshape(-1, 2)])
+    if not (np.all(pts == np.rint(pts)) and np.all(np.abs(pts) < COORD_LIMIT)):
         return None
+    s = np.zeros((bucket, 2), np.int32)
+    e = np.zeros((bucket, 2), np.int32)
+    cl = np.zeros(bucket, bool)
+    s[:n] = pts[:n]
+    e[:n] = pts[n:]
+    cl[:n] = np.asarray(closed, bool)
+    order, flips = _jitted()(
+        jnp.asarray(s), jnp.asarray(e), jnp.asarray(cl),
+        jnp.asarray(seed), jnp.asarray(n), closed_aware,
+    )
+    order = np.asarray(order)[:n]
+    flips = np.asarray(flips)[:n]
     return [int(i) for i in order], [bool(f) for f in flips]
 
 
 def device_planner_eligible() -> bool:
-    """Auto-engage only on a real accelerator: measured exact there, while
-    XLA:CPU's fma contraction can flip d² ulps vs the host (module note)."""
-    try:
-        import jax
+    """Auto-engage only on an accelerator: on the CPU backend the host C++
+    loop is the faster path (the result is identical either way)."""
+    import jax
 
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # noqa: BLE001
-        return False
+    return jax.default_backend() != "cpu"

@@ -1,10 +1,10 @@
-"""Device tour refinement: stage 12's optional 2-opt ⊕ relocation on the chip.
+"""Device tour refinement: stage 12's optional 2-opt ⊕ relocation on the device.
 
 The host refiner (vector/planner.py:140-238) scans O(n²) candidate moves in
 Python per pass — fine for the post-dedup op counts of typical runs (tens),
 unusable at poster/SVG scale (n in the thousands).  On-device, one iteration
 evaluates EVERY candidate move at once as masked n×n distance matrices
-(VPU-friendly elementwise math), applies the single best move with index
+(elementwise math), applies the single best move with index
 arithmetic, and loops under ``lax.while_loop`` until no move improves:
 
 - **2-opt(i, j)**: reverse ops [i..j] (each op flips orientation).  Only the
@@ -23,7 +23,7 @@ with ``plotopt_two_opt: false``) — the wrapper re-checks the tour length in
 float64 on host and keeps the original ops if the device pass somehow did
 not improve.
 
-Shapes are padded to a bucket (one compile per bucket, cached persistently);
+Shapes are padded to a bucket (one compile per bucket);
 padded rows are masked out of every move, so results depend only on the real
 ops.  Reference context: the reference has no refinement pass at all — its
 stage 12 emits the greedy order directly (12_optimize_plot_order.py:85-187).
@@ -176,8 +176,8 @@ def refine_order_device(
     max_moves: int = 4096,
 ) -> Optional[Tuple[np.ndarray, np.ndarray, int]]:
     """(perm, flip, n_moves) refining the tour over nodes with the given
-    entry/exit points; None when the plan exceeds the largest bucket or the
-    backend errors (callers keep the host path)."""
+    entry/exit points; None when the plan exceeds the largest bucket (callers
+    keep the host path).  Device errors propagate."""
     import jax.numpy as jnp
 
     n = len(entries)
@@ -188,21 +188,11 @@ def refine_order_device(
     X = np.zeros((bucket, 2), np.float32)
     E[:n] = np.asarray(entries, np.float32)
     X[:n] = np.asarray(exits, np.float32)
-    try:
-        perm, flip, moves = _jitted()(
-            jnp.asarray(E), jnp.asarray(X), jnp.asarray(n),
-            jnp.asarray(np.asarray(start, np.float32)), jnp.asarray(int(max_moves)),
-        )
-        perm = np.asarray(perm)[:n]
-        flip = np.asarray(flip)[:n]
-        moves = int(moves)
-    except Exception as e:  # noqa: BLE001 — device trouble → host refiner
-        import sys
-
-        print(f"[refine] device refiner unavailable ({type(e).__name__}: {e}); "
-              "falling back to host", file=sys.stderr)
-        return None
-    return perm, flip, moves
+    perm, flip, moves = _jitted()(
+        jnp.asarray(E), jnp.asarray(X), jnp.asarray(n),
+        jnp.asarray(np.asarray(start, np.float32)), jnp.asarray(int(max_moves)),
+    )
+    return np.asarray(perm)[:n], np.asarray(flip)[:n], int(moves)
 
 
 def refine_ops_device(ops: List[dict], max_moves: int = 4096) -> Optional[List[dict]]:

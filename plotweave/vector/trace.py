@@ -4,7 +4,8 @@ The walk order is part of the output contract (downstream greedy ordering and
 ultimately the stream bytes depend on it), so this reproduces the reference
 tracer's deterministic traversal exactly (04_find_contours.py:102-211):
 
-- components in connected-component label order (raster-first-occurrence),
+- components in cv2.connectedComponents label order (2×2-block first
+  occurrence, see :func:`connected_components`),
 - open paths seeded from endpoints (degree 1) in raster order, walking to the
   first eligible neighbor in the fixed probe order
   (dx,dy) ∈ (-1,-1),(0,-1),(1,-1),(-1,0),(1,0),(-1,1),(0,1),(1,1),
@@ -23,88 +24,39 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+from scipy import ndimage
 
+
+_EIGHT = np.ones((3, 3), bool)
 
 # neighbor probe order, exactly as the reference's NEIGH8 (dx, dy) list
 _PROBE = ((-1, -1), (0, -1), (1, -1), (-1, 0), (1, 0), (-1, 1), (0, 1), (1, 1))
 
 
 def connected_components(mask: np.ndarray) -> tuple[int, np.ndarray]:
-    """8-connected labels, numbered by raster-scan first occurrence (1-based).
+    """8-connected labels of ``mask > 0`` numbered exactly as
+    cv2.connectedComponents(connectivity=8) numbers them.
 
-    Fallback labeler: same component sets as OpenCV but a different label
-    *numbering* (OpenCV's BBDT numbers by 2×2-block traversal order).  Since
-    component order determines path order, the exact pipeline path labels via
-    OpenCV when available (see :func:`trace_skeleton`).
-    """
-    m = mask > 0
+    OpenCV's labeller scans 2×2 blocks, so a component's number is the rank
+    of the first block (in block-raster order) that holds one of its pixels
+    — not plain pixel-raster order.  Component order is path order (04:111),
+    so this numbering is part of the byte contract (pinned against cv2 in
+    tests/test_cvcolor.py).  Returns (num_labels incl. background, int32
+    labels)."""
+    m = np.asarray(mask) > 0
+    lab, n = ndimage.label(m, structure=_EIGHT)
+    lab = lab.astype(np.int32, copy=False)
+    if n == 0:
+        return 1, lab
     h, w = m.shape
-    labels = np.zeros((h, w), dtype=np.int32)
-    parent = [0]  # union-find; 0 = background sentinel
-
-    def find(a: int) -> int:
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    nxt = 1
-    # two-pass union-find over the 4 causal neighbors (W, NW, N, NE)
-    for y in range(h):
-        row = m[y]
-        for x in range(w):
-            if not row[x]:
-                continue
-            cands = []
-            if x > 0 and labels[y, x - 1]:
-                cands.append(labels[y, x - 1])
-            if y > 0:
-                if x > 0 and labels[y - 1, x - 1]:
-                    cands.append(labels[y - 1, x - 1])
-                if labels[y - 1, x]:
-                    cands.append(labels[y - 1, x])
-                if x + 1 < w and labels[y - 1, x + 1]:
-                    cands.append(labels[y - 1, x + 1])
-            if not cands:
-                labels[y, x] = nxt
-                parent.append(nxt)
-                nxt += 1
-            else:
-                roots = [find(c) for c in cands]
-                r = min(roots)
-                labels[y, x] = r
-                for q in roots:
-                    if q != r:
-                        parent[q] = r
-    # renumber roots by first raster occurrence
-    remap: dict[int, int] = {}
-    out = np.zeros_like(labels)
-    count = 0
-    flat = labels.ravel()
-    res = out.ravel()
-    for i in range(flat.shape[0]):
-        v = flat[i]
-        if v:
-            r = find(v)
-            lbl = remap.get(r)
-            if lbl is None:
-                count += 1
-                lbl = count
-                remap[r] = lbl
-            res[i] = lbl
-    return count + 1, out
-
-
-def default_labeler(mask: np.ndarray) -> tuple[int, np.ndarray]:
-    """OpenCV's connectedComponents when available (its BBDT label order is
-    the reference-compatible component iteration order, 04:111), else the
-    built-in union-find labeler."""
-    try:
-        import cv2  # noqa: PLC0415
-
-        return cv2.connectedComponents(mask.astype(np.uint8, copy=False), connectivity=8)
-    except ImportError:
-        return connected_components(mask)
+    ph, pw = h + (h & 1), w + (w & 1)
+    blk = lab if (ph, pw) == (h, w) else np.pad(lab, ((0, ph - h), (0, pw - w)))
+    scan = blk.reshape(ph // 2, 2, pw // 2, 2).transpose(0, 2, 1, 3).ravel()
+    scan = scan[scan > 0]
+    ids, first = np.unique(scan, return_index=True)
+    rank = np.zeros(n + 1, np.int32)
+    rank[ids[np.argsort(first)]] = np.arange(1, n + 1, dtype=np.int32)
+    return n + 1, rank[lab]
 
 
 def degree_map(mask: np.ndarray) -> np.ndarray:
@@ -123,15 +75,15 @@ def degree_map(mask: np.ndarray) -> np.ndarray:
 def trace_skeleton(skel: np.ndarray, labeler=None) -> List[np.ndarray]:
     """Trace a binary skeleton into polylines as (N, 1, 2) int32 [x, y] arrays.
 
-    ``labeler`` may supply a (num_labels, labels) pair (e.g. from
-    cv2.connectedComponents) — by default the built-in union-find is used.
+    ``labeler`` may supply a (num_labels, labels) pair; by default
+    :func:`connected_components` labels the skeleton.
     """
     s = (skel > 0)
     if not s.any():
         return []
     h, w = s.shape
     if labeler is None:
-        labeler = default_labeler
+        labeler = connected_components
     num, labels = labeler(s)
 
     deg_all = degree_map(s)

@@ -10,9 +10,9 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional, Tuple
 
-import cv2
 import numpy as np
 
+from ..utils import draw, write_image
 from ..vector.geometry import as_pts
 
 BGR = Tuple[int, int, int]
@@ -119,9 +119,9 @@ def _draw_polyline_periodic(img, pts: np.ndarray, color, thickness: int, lt,
     approximation (fuzz-pinned: tests/test_previews_periodic.py).
 
     When the caller's pending ordinary ``batch`` (+ ``flush``) is provided,
-    the prefix joins it (one cv2 call instead of two) and the tail is left
+    the prefix joins it (one draw call instead of two) and the tail is left
     in the batch for the caller's next flush — draw order is unchanged
-    because cv2.polylines renders its list sequentially.  Repeat passes run
+    because polylines renders its list sequentially.  Repeat passes run
     in geometrically growing groups ([period]*g per call) with the fixpoint
     check per group: any pass beyond the fixpoint inside a group is a no-op,
     so the final bytes are identical to the pass-by-pass loop."""
@@ -130,24 +130,24 @@ def _draw_polyline_periodic(img, pts: np.ndarray, color, thickness: int, lt,
     if found is None:
         return False
     s, T, k = found
-    period = pts[s : s + T + 1].reshape(-1, 1, 2)
+    period = pts[s : s + T + 1]
     # region the repeat passes can touch, with stamp margin
     x0, y0 = period.reshape(-1, 2).min(axis=0) - (thickness + 3)
     x1, y1 = period.reshape(-1, 2).max(axis=0) + (thickness + 4)
     h, w = img.shape[:2]
     x0, y0 = max(0, int(x0)), max(0, int(y0))
     x1, y1 = min(w, int(x1)), min(h, int(y1))
-    prefix = pts[: s + T + 1].reshape(-1, 1, 2)
+    prefix = pts[: s + T + 1]
     if batch is not None:
         batch.append(prefix)
         flush()
     else:
-        cv2.polylines(img, [prefix], False, color, thickness, lt)
+        draw.polylines(img, [prefix], False, color, thickness, lt)
     done, group = 0, 1
     while done < k - 1:
         g = min(group, k - 1 - done)
         before = img[y0:y1, x0:x1].copy()
-        cv2.polylines(img, [period] * g, False, color, thickness, lt)
+        draw.polylines(img, [period] * g, False, color, thickness, lt)
         done += g
         if (img[y0:y1, x0:x1] == before).all():
             break  # fixpoint: every further identical pass is a no-op
@@ -155,9 +155,9 @@ def _draw_polyline_periodic(img, pts: np.ndarray, color, thickness: int, lt,
     tail = pts[s + k * T :]
     if len(tail) >= 2:
         if batch is not None:
-            batch.append(tail.reshape(-1, 1, 2))  # next flush keeps the order
+            batch.append(tail)  # next flush keeps the order
         else:
-            cv2.polylines(img, [tail.reshape(-1, 1, 2)], False, color, thickness, lt)
+            draw.polylines(img, [tail], False, color, thickness, lt)
     return True
 
 
@@ -174,22 +174,22 @@ def render_layer(
 ) -> np.ndarray:
     w, h = size_wh
     img = np.full((h, w, 3), 255, np.uint8)
-    lt = cv2.LINE_AA if antialiased else cv2.LINE_8
-    # one cv2 call per run of ordinary polylines (each is still drawn
+    lt = draw.LINE_AA if antialiased else draw.LINE_8
+    # one draw call per run of ordinary polylines (each is still drawn
     # independently, in order — identical pixels to per-contour calls);
     # long spun polylines take the byte-exact periodic fixpoint path
     batch: List[np.ndarray] = []
 
     def flush():
         if batch:
-            cv2.polylines(img, batch, False, color, thickness, lt)
+            draw.polylines(img, batch, False, color, thickness, lt)
             batch.clear()
 
     _MISS = object()
     for p in lines:
         if p is None:
             continue
-        a = as_pts(p).reshape(-1, 1, 2).astype(np.int32)
+        a = as_pts(p).reshape(-1, 2).astype(np.int32)
         if len(a) < 2:
             continue
         if len(a) >= _PERIODIC_MIN:
@@ -198,11 +198,11 @@ def render_layer(
             # stable: the caller holds the lines list for both renders)
             found = period_memo.get(id(p), _MISS) if period_memo is not None else _MISS
             if found is _MISS:
-                found = _find_period(a[:, 0, :])
+                found = _find_period(a)
                 if period_memo is not None:
                     period_memo[id(p)] = found
             if found is None or not _draw_polyline_periodic(
-                img, a[:, 0, :], color, thickness, lt, found=found,
+                img, a, color, thickness, lt, found=found,
                 batch=batch, flush=flush,
             ):
                 batch.append(a)
@@ -211,14 +211,13 @@ def render_layer(
     flush()
     if taps:
         for x, y in taps:
-            cv2.circle(img, (int(x), int(y)), int(tap_radius), tap_color or color, -1, cv2.LINE_AA)
+            draw.circle(img, (int(x), int(y)), int(tap_radius), tap_color or color, -1, draw.LINE_AA)
     return img
 
 
 def overlay_nonwhite(composite: np.ndarray, layer_img: np.ndarray) -> None:
     """composite[p] = layer_img[p] wherever layer_img[p] != (255,255,255)."""
-    white = cv2.inRange(layer_img, (255, 255, 255), (255, 255, 255))
-    cv2.copyTo(layer_img, cv2.bitwise_not(white), composite)
+    draw.copy_nonwhite(composite, layer_img)
 
 
 def render_stage_previews(
@@ -235,9 +234,10 @@ def render_stage_previews(
 ) -> str:
     """Write <layer>/<per_layer_name> + <out_dir>/<composite_name>.
 
-    Layers render concurrently (cv2 releases the GIL; each layer's render and
-    PNG write are independent), then composite overlays apply in layer order —
-    output bytes are identical to the sequential loop.
+    Layers render concurrently (the native rasterizer and zlib release the
+    GIL; each layer's render and PNG write are independent), then composite
+    overlays apply in layer order — output bytes are identical to the
+    sequential loop.
     """
     from ..utils import thread_map  # noqa: PLC0415
 
@@ -253,7 +253,7 @@ def render_stage_previews(
             taps=taps, tap_color=tap_color_black_pass, tap_radius=tap_radius,
             period_memo=memo,
         )
-        cv2.imwrite(os.path.join(d, per_layer_name), black)
+        write_image(os.path.join(d, per_layer_name), black)
         col = palette.get(name, (0, 0, 0))
         return render_layer(
             size_wh, lines, col, thickness, antialiased,
@@ -266,6 +266,6 @@ def render_stage_previews(
         overlay_nonwhite(composite, colored)
         print(f"[preview] {name}: lines={len(lines)}, taps={len(taps or [])}")
     out = os.path.join(out_dir, composite_name)
-    cv2.imwrite(out, composite)
+    write_image(out, composite)
     print(f"[preview] composite saved: {out}")
     return out

@@ -57,7 +57,7 @@ def render_stream(
     white_bg: bool = True,
 ) -> Tuple[np.ndarray, StreamDecoder]:
     """Headless render: replay the stream onto a BGR image."""
-    import cv2  # noqa: PLC0415
+    from ..utils import draw  # noqa: PLC0415
 
     palette = palette or DEFAULT_PALETTE
     dec = StreamDecoder(data)
@@ -75,13 +75,13 @@ def render_stream(
 
     for poly, cidx in zip(res.polylines, res.colors):
         color = palette[min(cidx, len(palette) - 1)]
-        pts = np.array([to_px(int(x), int(y)) for x, y in poly], np.int32).reshape(-1, 1, 2)
-        cv2.polylines(img, [pts], False, color, 1, cv2.LINE_8)
+        pts = np.array([to_px(int(x), int(y)) for x, y in poly], np.int32)
+        draw.polylines(img, [pts], False, color, 1)
     if render_taps:
         for (x, y), cidx in zip(res.taps, res.tap_colors):
             color = palette[min(cidx, len(palette) - 1)]
-            cv2.circle(img, to_px(int(x), int(y)), max(1, TAP_DIAM_PX // 2), color, -1)
-    cv2.rectangle(img, (ox, oy), (ox + used_w - 1, oy + used_h - 1), (30, 30, 30), 1)
+            draw.circle(img, to_px(int(x), int(y)), max(1, TAP_DIAM_PX // 2), color, -1)
+    draw.rectangle(img, (ox, oy), (ox + used_w - 1, oy + used_h - 1), (30, 30, 30), 1)
     return img, dec
 
 
@@ -323,9 +323,9 @@ def main(argv=None) -> None:
             bool(args.render_taps),
             bool(args.background_white),
         )
-        import cv2  # noqa: PLC0415
+        from ..utils import write_image  # noqa: PLC0415
 
-        cv2.imwrite(args.output, img)
+        write_image(args.output, img)
         print(f"Image saved: {args.output}")
         print_stats(dec)
     else:

@@ -371,10 +371,10 @@ def test_bg_fetch_returns_value_and_reraises():
 
     def failing():
         time.sleep(0.05)  # join must WAIT for the body, not race it
-        raise Boom("tunnel died mid-fetch")
+        raise Boom("device fetch failed")
 
     join = _bg_fetch(failing)
-    with pytest.raises(Boom, match="tunnel died mid-fetch"):
+    with pytest.raises(Boom, match="device fetch failed"):
         join()
 
 

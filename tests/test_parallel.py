@@ -80,15 +80,19 @@ def test_grid_2d_sharding_bit_identical(eight_devices):
     assert (np.asarray(s_g) == np.asarray(s_1)).all()
 
 
-def test_graft_entry_and_dryrun():
+def test_graft_entry_and_dryrun(eight_devices, tmp_path):
+    """The multi-card checks of ``chip_smoke.py --four-cards`` rehearsed on
+    the virtual CPU mesh: batch mode over a ``data`` mesh (more images than
+    devices, a ragged last group, mixed shapes), the row-sharded chain and
+    the data×space grid front-end, each byte-equal to one device."""
     import sys
     from pathlib import Path
 
     sys.path.insert(0, str(Path(__file__).parent.parent))
-    import __graft_entry__ as g
+    import chip_smoke
 
-    fn, args = g.entry()
-    out = jax.jit(fn)(*args)
-    jax.block_until_ready(out)
-    assert out[0].shape == (4, 512, 512)
-    g.dryrun_multichip(8)
+    devs = eight_devices[:4]
+    shapes = [(60, 80), (80, 60), (72, 96), (60, 80), (90, 120)]
+    assert chip_smoke.check_batch_mode(tmp_path, devs, shapes=shapes).startswith("batch over 4")
+    assert "byte-equal" in chip_smoke.check_sharded_chain(devs, k=4, h=96, w=80)
+    assert "byte-equal" in chip_smoke.check_grid_frontend(devs)

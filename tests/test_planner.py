@@ -8,6 +8,7 @@ import tarfile
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 from plotweave.vector.planner import plan_layer_ops, tour_length, two_opt_refine
 
@@ -133,38 +134,54 @@ def test_split_on_jumps_compares_in_float64():
         _np.testing.assert_array_equal(a, b)
 
 
-def test_device_planner_matches_host():
+@pytest.mark.parametrize("n,closed_aware", [(300, True), (300, False), (1500, True)])
+def test_device_planner_matches_host(n, closed_aware):
     """vector/planner_device.py (the stage-07 auto-switch for huge plans):
-    device order+flips must equal the host C++ selection loop on the
-    8-device CPU mesh.  Coordinates stay ≤ 2000 so squared distances are
-    exact float32 integers (no fma-contraction ambiguity on XLA:CPU — the
-    production gate only engages on accelerator backends; see module note)."""
+    device order+flips must equal the host C++ selection loop.  Coordinates
+    span the full A4 canvas (squares far past float32's 2²⁴ integer range)
+    with exact and near ties: the integer squares keep every backend's
+    distances equal to the host's rounding (module note)."""
     import numpy as np
 
     from plotweave.vector.planner_device import BUCKETS, greedy_order_device
     from plotweave.vector.sort import _greedy_order_native
 
-    rng = np.random.default_rng(2)
-    for n, closed_aware in [(300, True), (300, False), (1500, True)]:
-        starts = rng.integers(0, 2000, (n, 2)).astype(np.float32)
-        ends = rng.integers(0, 2000, (n, 2)).astype(np.float32)
-        closed = rng.random(n) < 0.3
-        seed = int(rng.integers(0, n))
-        # shrink the bucket table so the test compiles a tiny program
-        import plotweave.vector.planner_device as P
+    import plotweave.vector.planner_device as P
 
-        old = P.BUCKETS
-        P.BUCKETS = (2048,)
-        try:
-            dev = greedy_order_device(starts, ends, closed, closed_aware, seed)
-        finally:
-            P.BUCKETS = old
-        assert dev is not None
-        host = _greedy_order_native(starts, ends, closed, closed_aware, seed)
-        assert host is not None, "native library must be available"
-        assert dev[0] == host[0], (n, closed_aware)
-        assert dev[1] == host[1], (n, closed_aware)
+    rng = np.random.default_rng(n + closed_aware)
+    starts = rng.integers(0, 11881, (n, 2))
+    starts[rng.choice(n, n // 8)] = starts[rng.choice(n, n // 8)]  # exact ties
+    starts[rng.choice(n, n // 8)] = starts[rng.choice(n, n // 8)] + 1  # near ties
+    starts = starts.astype(np.float32)
+    ends = rng.integers(0, 11881, (n, 2)).astype(np.float32)
+    closed = rng.random(n) < 0.3
+    seed = int(rng.integers(0, n))
+    old = P.BUCKETS
+    P.BUCKETS = (2048,)  # shrink the bucket table: a tiny program to compile
+    try:
+        dev = greedy_order_device(starts, ends, closed, closed_aware, seed)
+    finally:
+        P.BUCKETS = old
+    assert dev is not None
+    host = _greedy_order_native(starts, ends, closed, closed_aware, seed)
+    assert host is not None, "native library must be available"
+    assert dev[0] == host[0]
+    assert dev[1] == host[1]
     assert BUCKETS[0] >= 4096  # production buckets stay coarse
+
+
+def test_device_planner_keeps_non_integer_plans_on_host():
+    """Fractional or out-of-range endpoints would break the integer-exact
+    distance path, so the device planner declines them."""
+    import numpy as np
+
+    import plotweave.vector.planner_device as P
+
+    s = np.array([[0.5, 1.0], [3.0, 4.0], [5.0, 6.0]], np.float32)
+    e = s + 1
+    assert P.greedy_order_device(s, e, [False] * 3, True, 0) is None
+    far = np.array([[0, 0], [P.COORD_LIMIT, 1], [5, 6]], np.float32)
+    assert P.greedy_order_device(far, far, [False] * 3, True, 0) is None
 
 
 def test_device_planner_via_sort_contours():
@@ -278,3 +295,21 @@ def test_device_refiner_perm_stays_valid_every_step():
             raise AssertionError("refiner did not converge within 60 moves")
     finally:
         R.BUCKETS = old
+
+
+def test_device_planner_has_no_float_multiplies():
+    """GPU compilers fuse a float32 multiply feeding an add into one FMA,
+    which rounds differently from the host's product-then-add.  The device
+    planner squares in int32, so its program must hold no f32 multiply."""
+    import re
+
+    import jax.numpy as jnp
+
+    import plotweave.vector.planner_device as P
+
+    s = jnp.zeros((64, 2), jnp.int32)
+    hlo = P._jitted().lower(s, s, jnp.zeros(64, bool), jnp.asarray(0), jnp.asarray(64),
+                            closed_aware=True).as_text()
+    muls = re.findall(r"stablehlo\.multiply.*", hlo)
+    assert muls, "expected the integer squares in the program"
+    assert not [m for m in muls if "f32" in m], muls

@@ -26,7 +26,6 @@ from plotweave.ops.canny import canny
 from plotweave.ops.filters import gaussian_blur_u8
 from plotweave.ops.morphology import _morph
 from plotweave.ops.thinning import zhang_suen
-from plotweave.parallel._compat import shard_map
 from plotweave.parallel.mesh import make_mesh
 from plotweave.parallel.spatial import (
     AXIS,
@@ -74,9 +73,9 @@ def space_mesh():
 
 def _run_halo(mesh, fn, x: np.ndarray) -> np.ndarray:
     """Apply a halo-twin body to (K, rows, W) with rows sharded over AXIS."""
-    f = shard_map(
+    f = jax.shard_map(
         fn, mesh=mesh, in_specs=(P(None, AXIS, None),),
-        out_specs=P(None, AXIS, None), check_rep=False,
+        out_specs=P(None, AXIS, None), check_vma=False,
     )
     return np.asarray(jax.jit(f)(x))
 

@@ -49,7 +49,6 @@ def main() -> None:
     out = tmp / "out"
     out.mkdir()
     raw = make_cfg(img, out)
-    raw["raster_device"] = "cpu"
     (out / "config.json").write_text(json.dumps(raw))
     cfg = load_config(str(out / "config.json"))
     run_pipeline(cfg, start_step=1, end_step=3)

@@ -4,7 +4,7 @@
 Runs the reference's own implementations (cv2 morphology/blur/canny with one
 thread + the reference stage-04 vectorized-numpy Zhang–Suen, imported from
 /root/reference) on a 2000×1500 synthetic portrait-like image with 4 layers —
-the same work plotweave's fused `raster_frontend` does on TPU.  Prints the
+the same work plotweave's fused `raster_frontend` does on the device.  Prints the
 megapixels/sec figure embedded in bench.py as the baseline.
 """
 
