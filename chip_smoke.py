@@ -394,6 +394,29 @@ def phase_refiner(work: Path, card: str, seed: int) -> str:
     return f"refiner ok on {engaged} layer(s)"
 
 
+def attempt_readout(img, dev, k, iters, attempts, limit, seed):
+    """Every k-means attempt of the device fit on one backend: its
+    compactness and final centres (same sample and ++ keys as the stage,
+    traced as a program of its own)."""
+    import jax
+    import jax.numpy as jnp
+
+    from plotweave.ops.colorspace import bgr_to_lab_u8
+    from plotweave.ops.kmeans import _kpp_init_device, _lloyd
+
+    @jax.jit
+    def fit(x):
+        flat = bgr_to_lab_u8(x).reshape(-1, 3)
+        idx = jax.random.choice(jax.random.PRNGKey(seed), flat.shape[0], (limit,), replace=False)
+        sample = jnp.take(flat, idx, axis=0)
+        out = [_lloyd(sample, _kpp_init_device(sample, k, jax.random.PRNGKey(seed + 1000 * a)), iters)
+               for a in range(attempts)]
+        return jnp.stack([c for c, _ in out]), jnp.stack([v for _, v in out])
+
+    cents, comps = fit(jax.device_put(img, dev))
+    return np.asarray(comps), np.asarray(cents)
+
+
 def phase_kmeans_device(seed: int) -> str:
     import jax
 
@@ -415,6 +438,11 @@ def phase_kmeans_device(seed: int) -> str:
         stats = np.ascontiguousarray(blob[: k * 16]).view(np.float32).reshape(k, 4)
         packed = blob[k * 16:].reshape(k, h, (w + 7) // 8)
         return stats[:, :3], np.unpackbits(packed, axis=-1)[..., :w]
+
+    for dev in (jax.devices()[0], jax.devices("cpu")[0]):
+        comps, cents = attempt_readout(img, dev, *args[:5])
+        log(f"[f] {dev.platform} attempts: compactness {comps.tolist()}, "
+            f"centre L by attempt {[np.round(np.sort(c[:, 0]), 3).tolist() for c in cents]}")
 
     # layers are the clusters ordered dark → light (stage 02's relabel), so
     # compare in that order

@@ -57,11 +57,11 @@ def _retain_heap() -> None:
 
     By default glibc serves multi-MB numpy temporaries via mmap and munmaps
     them on free, so every stage's big temporary re-pays fresh page faults.
-    On this class of host that cost is pathological and EPISODIC: measured
-    55 ms/MB during bad phases (a 240 MB first-touch took 13 s) vs ~0.3 ms/MB
-    warm — reusing warm heap pages is 100×+ cheaper than re-faulting.  Raising
-    the mmap/trim thresholds makes the heap grow to the pipeline's peak
-    working set once and stay there (hundreds of MB against 128 GB RAM).
+    On the earlier one-core development host that cost was pathological and
+    episodic: 55 ms/MB during bad phases (a 240 MB first-touch took 13 s)
+    vs ~0.3 ms/MB warm, both measured there; on GPU hosts it is not measured
+    yet.  Raising the mmap/trim thresholds makes the heap grow to the
+    pipeline's peak working set once and stay there.
     Opt out with PLOTWEAVE_NO_MALLOC_TUNE=1.
     """
     if _os.environ.get("PLOTWEAVE_NO_MALLOC_TUNE"):

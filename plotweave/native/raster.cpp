@@ -555,7 +555,7 @@ void thick_line(const Img& im, P2 p0, P2 p1, const uint8_t* c, int thickness, in
     }
 }
 
-// ---- minimum enclosing circle (OpenCV shapedescr.cpp, float arithmetic)
+// ---- minimum enclosing circle (OpenCV 5 shapedescr.cpp, float arithmetic)
 
 const float MEC_EPS = 1.0e-4f;
 
@@ -575,19 +575,9 @@ void circle3(const F2* p, F2& center, float& radius) {
     F2 m2 = {(p[0].x + p[2].x) / 2.0f, (p[0].y + p[2].y) / 2.0f};
     float c2 = m2.x * v2.x + m2.y * v2.y;
     float det = v1.x * v2.y - v1.y * v2.x;
-    if (std::fabs(det) <= MEC_EPS) {
-        F2 e1 = {p[0].x - p[1].x, p[0].y - p[1].y};
-        F2 e2 = {p[0].x - p[2].x, p[0].y - p[2].y};
-        F2 e3 = {p[1].x - p[2].x, p[1].y - p[2].y};
-        float d1 = e1.x * e1.x + e1.y * e1.y;
-        float d2 = e2.x * e2.x + e2.y * e2.y;
-        float d3 = e3.x * e3.x + e3.y * e3.y;
-        radius = std::sqrt(std::max(d1, std::max(d2, d3))) * 0.5f + MEC_EPS;
-        if (d1 >= d2 && d1 >= d3) center = {(p[0].x + p[1].x) * 0.5f, (p[0].y + p[1].y) * 0.5f};
-        else if (d2 >= d1 && d2 >= d3) center = {(p[0].x + p[2].x) * 0.5f, (p[0].y + p[2].y) * 0.5f};
-        else center = {(p[1].x + p[2].x) * 0.5f, (p[1].y + p[2].y) * 0.5f};
-        return;
-    }
+    // OpenCV 5 keeps the current circle for (near-)collinear triples; the
+    // caller sees radius 0 and leaves its circle as it was.
+    if (std::fabs(det) <= MEC_EPS) return;
     float cx = (c1 * v2.y - c2 * v1.y) / det;
     float cy = (v1.x * c2 - v2.x * c1) / det;
     center = {cx, cy};
@@ -653,10 +643,24 @@ void pw_draw_circle(uint8_t* data, int h, int w, int cn, int64_t step, int cx, i
 }
 
 // cv2.minEnclosingCircle over n float32 (x, y) points → out = (cx, cy, r).
+// OpenCV 5 shuffles a copy of more than ten points before the Welzl loop,
+// with a cv::RNG seeded from n and the bits of the first and last point.
 void pw_min_enclosing_circle(const float* xy, int64_t n, float* out) {
     out[0] = out[1] = out[2] = 0.f;
     if (n <= 0) return;
-    const F2* pts = reinterpret_cast<const F2*>(xy);
+    std::vector<F2> buf(reinterpret_cast<const F2*>(xy), reinterpret_cast<const F2*>(xy) + n);
+    F2* pts = buf.data();
+    if (n > 10) {
+        uint32_t bits[4];
+        std::memcpy(bits, &pts[0], 8);
+        std::memcpy(bits + 2, &pts[n - 1], 8);
+        uint64_t state = (uint32_t)n ^ bits[0] ^ (bits[1] << 8) ^ (bits[2] << 16) ^ (bits[3] << 24);
+        if (state == 0) state = 0xffffffffu;
+        for (uint32_t i = 2; i <= (uint32_t)n; ++i) {
+            state = (uint64_t)(uint32_t)state * 4164903690u + (state >> 32);  // cv::RNG::next
+            std::swap(pts[i - 1], pts[(uint32_t)state % i]);
+        }
+    }
     if (n == 1) {
         out[0] = pts[0].x; out[1] = pts[0].y; out[2] = MEC_EPS;
         return;

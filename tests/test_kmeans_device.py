@@ -1,7 +1,7 @@
 """kmeans_init="device" attempt selection: a later attempt replaces the best
 only when its compactness is lower by more than ATTEMPT_TIE_RTOL, so two
-attempts that reach the same optimum (equal to float32 summation noise)
-resolve to the earlier one on every backend."""
+attempts whose optima differ by less than float32 summation noise resolve
+to the earlier one on every backend."""
 
 from __future__ import annotations
 

@@ -131,18 +131,87 @@ def test_stamp_table_matches_cv2_lines(thickness, R):
             assert np.array_equal(got, ref), (dx, dy)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 5, 10])
+def _tap_contour(rng, n):
+    """A closed integer outline of n vertices around a small blob, as the
+    stage-08/10 tap candidates are: a few pixels across, anywhere on the
+    8400 x 11880 canvas, with repeated and collinear vertices."""
+    t = np.sort(rng.random(n)) * 2 * np.pi
+    r = rng.uniform(1.0, 12.0) * (1.0 + 0.3 * rng.standard_normal(n))
+    xy = np.stack([np.cos(t), np.sin(t)], 1) * r[:, None] + rng.integers(0, [8400, 11880])
+    return np.rint(xy).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 10, 11, 12, 17, 25, 50, 1100])
 def test_min_enclosing_circle_exact(n):
-    """Bit-identical centre and radius for up to ten points (float and
-    integer-valued inputs, the pipeline's tap contours included).  From
-    eleven points on, cv2 5.x takes another route whose float32 rounding
-    this port does not reproduce (ROADMAP, open items)."""
+    """Bit-identical centre and radius: float inputs, integer-valued point
+    clouds and tap-like outlines.  Above ten points cv2 shuffles its copy
+    first, so these sizes pin the shuffle too; 1100 points take cv2's heap
+    buffer."""
     _need_native()
     rng = np.random.default_rng(n)
-    for it in range(2000):
-        if it % 2:
+    for it in range(2000 if n < 1000 else 100):
+        kind = it % 3
+        if kind == 0:
             pts = (rng.random((n, 2)) * 1000).astype(np.float32)
-        else:
+        elif kind == 1:
             pts = (rng.integers(0, 25, (n, 2)) + rng.integers(0, 8000, 2)).astype(np.float32)
+        else:
+            pts = _tap_contour(rng, n)
         (cx, cy), r = cv2.minEnclosingCircle(pts.reshape(-1, 1, 2))
         assert draw.min_enclosing_circle(pts) == ((cx, cy), r), pts
+
+
+def test_tap_stages_match_cv2_on_many_vertex_taps(tmp_path, monkeypatch):
+    """Stages 08 and 10 end to end on layers whose tap candidates have 11 to
+    50 vertices (up to the default tap_max_vertices): every pickle they
+    write is byte-identical to the one written with cv2.minEnclosingCircle
+    in place of the port."""
+    _need_native()
+    from plotweave.config import PipelineConfig
+    from plotweave.stages import s08_dedup_intra, s10_dedup_cross
+    from plotweave.stages.common import layer_dir
+    from plotweave.utils import save_pickle
+
+    names = ["layer_a", "layer_b"]
+    W, H = 1600, 2000
+
+    def blob(rng, r_lo, r_hi):
+        n = int(rng.integers(11, 51))
+        t = np.sort(rng.random(n)) * 2 * np.pi
+        r = rng.uniform(r_lo, r_hi) * (1.0 + 0.15 * rng.standard_normal(n))
+        xy = np.stack([np.cos(t), np.sin(t)], 1) * r[:, None] + rng.integers(40, [W - 40, H - 40])
+        return np.rint(xy).astype(np.int32).reshape(-1, 1, 2)
+
+    def run(tag):
+        cfg = PipelineConfig(output_dir=str(tmp_path / tag), color_names=names,
+                             target_width_px=W, target_height_px=H)
+        rng = np.random.default_rng(5)
+        for name in names:
+            polys = [blob(rng, 2, 9) for _ in range(700)]      # stage-08 taps (bbox <= 25)
+            polys += [blob(rng, 14, 22) for _ in range(300)]   # kept by 08, taps in stage 10
+            order = rng.permutation(len(polys))
+            save_pickle([polys[i] for i in order], layer_dir(cfg, name) + "/contours_sorted.pkl")
+        s08_dedup_intra.run(cfg)
+        s10_dedup_cross.run(cfg)
+        return {(name, f): (tmp_path / tag / name / f).read_bytes() for name in names
+                for f in ("lines_intra.pkl", "taps_intra.pkl", "lines_cross.pkl", "taps_cross.pkl")}
+
+    calls = []
+    port = draw.min_enclosing_circle
+
+    def counted(points):
+        calls.append(len(np.asarray(points).reshape(-1, 2)))
+        return port(points)
+
+    monkeypatch.setattr(draw, "min_enclosing_circle", counted)
+    ours = run("port")
+    assert sum(n >= 11 for n in calls) >= 1500, "the stages must reach 11+ vertex taps"
+
+    def opencv(points):
+        (cx, cy), r = cv2.minEnclosingCircle(np.asarray(points, np.float32).reshape(-1, 1, 2))
+        return (cx, cy), r
+
+    monkeypatch.setattr(draw, "min_enclosing_circle", opencv)
+    theirs = run("cv2")
+    for key in ours:
+        assert ours[key] == theirs[key], key
